@@ -6,7 +6,7 @@ prior_mean=0.01 symmetry breaking, rho=0.6, EP damping 0.3 with
 EarlyStopping(wait_increase=10), SE uninformed init a0=0.1, BO informed
 init a0=1e3, sign-symmetric mse).
 
-TPU-native protocol: per-alpha EP seed batches via EPSolver.solve_batch;
+Batched protocol: per-alpha EP seed batches via EPSolver.solve_batch;
 SE/BO alpha grids as single vmapped SESolver solves with per-grid-point
 CustomInit lists.
 """

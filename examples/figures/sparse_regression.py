@@ -5,7 +5,7 @@ run_SE l:63-73, run_BO l:76-88, protocol l:90-106: EP on N=2000 instances
 averaged over 25 seeds, SE/BO on 100-point alpha grids, BO with informed
 init a0 = 10**(3*exp(alpha))).
 
-TPU-native protocol: the per-alpha EP seed average is ONE vmapped
+Batched protocol: the per-alpha EP seed average is ONE vmapped
 EPSolver.solve_batch (seeds stacked as a leading model axis); the SE and
 BO alpha grids are each ONE vmapped SESolver.solve_batch with alpha as a
 traced Marchenko-Pastur leaf — per-alpha informed inits enter as a list

@@ -123,32 +123,6 @@ def test_quadrature_vs_scipy():
     np.testing.assert_allclose(got, want, rtol=1e-9)
 
 
-def test_kernel_mode_special_functions():
-    """The self-contained (Pallas-safe) Chebyshev/Taylor implementations
-    match scipy to ~1e-12 relative accuracy. (They are MORE accurate than
-    jax.scipy's log_ndtr, whose error vs scipy is ~6e-8 at x=6.)"""
-    from tramp_tpu.utils import special
-
-    xnp = np.concatenate([
-        np.linspace(-6, 6, 4001),
-        np.array([-30.0, -26.0, 26.0, 30.0, 100.0, -0.49, 0.49, 0.51]),
-    ])
-    x = jnp.asarray(xnp)
-    ref = dict(
-        erfcx=sp.erfcx(xnp), erf=sp.erf(xnp),
-        ndtr=sp.ndtr(xnp), log_ndtr=sp.log_ndtr(xnp))
-    with special.kernel_mode():
-        got = dict(
-            erfcx=special.erfcx(x), erf=special.erf(x),
-            ndtr=special.norm_cdf(x), log_ndtr=special.log_Phi(x))
-    for name in ref:
-        a, b = np.asarray(ref[name]), np.asarray(got[name])
-        mask = np.isfinite(a)
-        assert np.array_equal(np.isfinite(a), np.isfinite(b)), name
-        np.testing.assert_allclose(
-            b[mask], a[mask], rtol=1e-12, atol=1e-300, err_msg=name)
-
-
 def test_erfcx_float32_mid_range():
     """f32 regression (round-3): the direct exp(x^2)*erfc(x) product must
     not be used where f32 exp overflows (x ~ 9.4-25): that produced
@@ -164,3 +138,93 @@ def test_erfcx_float32_mid_range():
     # negative side still overflows to inf exactly like scipy
     neg = np.asarray(erfcx(jnp.asarray([-15.0], jnp.float32)))
     assert np.isinf(neg).all()
+
+
+# -- piecewise-linear channels vs a scipy float64 truncated-normal oracle --
+
+PL_CHANNELS = [
+    ("sgn", lambda ch: ch.SgnChannel()),
+    ("abs", lambda ch: ch.AbsChannel()),
+    ("relu", lambda ch: ch.ReluChannel()),
+    ("leaky_relu", lambda ch: ch.LeakyReluChannel(slope=0.3)),
+    ("hard_tanh", lambda ch: ch.HardTanhChannel()),
+    ("door", lambda ch: ch.SymmetricDoorChannel(width=0.7)),
+]
+
+
+def _pl_oracle(specs, az, bz, ax, bx):
+    """Posterior (rz, mean vz, rx, mean vx) and total log partition of a
+    piecewise-linear channel, region by region with scipy's truncated
+    normal in float64 (reference linear_region.py / truncated_normal.py)."""
+    from scipy.stats import truncnorm
+    rz, vz, rx, vx, logZ = [], [], [], [], []
+    for zmin, zmax, x0, slope in specs:
+        a = az + slope**2 * ax
+        b = bz + slope * (bx - ax * x0)
+        r0, s0 = b / a, np.sqrt(1.0 / a)
+        lo, hi = (zmin - r0) / s0, (zmax - r0) / s0
+        m = truncnorm.mean(lo, hi, loc=r0, scale=s0)
+        v = truncnorm.var(lo, hi, loc=r0, scale=s0)
+        # log of the mass in [lo, hi], from the upper tail side of each
+        log_mass = sp.log_ndtr(hi) + np.log(-np.expm1(
+            sp.log_ndtr(lo) - sp.log_ndtr(hi)))
+        logZ.append(0.5 * b**2 / a + 0.5 * np.log(2 * np.pi / a) + log_mass
+                    - 0.5 * ax * x0**2 + bx * x0)
+        rz.append(m)
+        vz.append(v)
+        rx.append(x0 + slope * m)
+        vx.append(slope**2 * v)
+    logZ = np.stack(logZ)
+    p = np.exp(logZ - logZ.max(0))
+    p /= p.sum(0)
+
+    def merge(rs, vs):
+        rs, vs = np.stack(rs), np.stack(vs)
+        r = (p * rs).sum(0)
+        return r, ((p * (vs + rs**2)).sum(0) - r**2).mean()
+
+    top = logZ.max(0)
+    total = (top + np.log(np.exp(logZ - top).sum(0))).sum()
+    return merge(rz, vz) + merge(rx, vx) + (total,)
+
+
+@pytest.mark.parametrize("make", [m for _, m in PL_CHANNELS],
+                         ids=[n for n, _ in PL_CHANNELS])
+def test_pl_channel_vs_scipy_oracle(make):
+    """Region-path posterior and log partition of each piecewise-linear
+    channel match the scipy float64 truncated-normal oracle."""
+    from tramp_tpu import channels
+    channel = make(channels)
+    rng = np.random.RandomState(3)
+    az, ax = 1.7, 0.9
+    bz, bx = rng.randn(64) * 1.5, rng.randn(64) * 1.5
+    rz, vz, rx, vx, logZ = _pl_oracle(channel.region_specs, az, bz, ax, bx)
+    got_rz, got_vz = channel.compute_backward_posterior(az, bz, ax, bx)
+    got_rx, got_vx = channel.compute_forward_posterior(az, bz, ax, bx)
+    got_logZ = channel.compute_log_partition(az, bz, ax, bx)
+    np.testing.assert_allclose(np.asarray(got_rz), rz, rtol=1e-7, atol=1e-9)
+    np.testing.assert_allclose(float(got_vz), vz, rtol=1e-7)
+    np.testing.assert_allclose(np.asarray(got_rx), rx, rtol=1e-7, atol=1e-9)
+    np.testing.assert_allclose(float(got_vx), vx, rtol=1e-7, atol=1e-12)
+    np.testing.assert_allclose(float(got_logZ), logZ, rtol=1e-9)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [m for _, m in PL_CHANNELS],
+                         ids=[n for n, _ in PL_CHANNELS])
+def test_pl_channel_float32_on_gpu(gpu, make):
+    """The same posterior compiled for the card in float32 (the f32 erfcx
+    branch) stays finite and within float32 reach of the float64 oracle."""
+    from tramp_tpu import channels
+    channel = make(channels)
+    rng = np.random.RandomState(4)
+    az, ax = 1.7, 0.9
+    bz, bx = rng.randn(4096) * 4, rng.randn(4096) * 4
+    rz, vz, rx, vx, _ = _pl_oracle(channel.region_specs, az, bz, ax, bx)
+    f32 = jax.device_put(jnp.asarray(np.stack([bz, bx]), jnp.float32), gpu)
+    got_rz, got_vz = jax.jit(channel.compute_backward_posterior)(
+        jnp.float32(az), f32[0], jnp.float32(ax), f32[1])
+    assert np.isfinite(np.asarray(got_rz)).all()
+    np.testing.assert_allclose(np.asarray(got_rz, np.float64), rz,
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(got_vz), vz, rtol=1e-4)

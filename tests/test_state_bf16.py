@@ -1,6 +1,5 @@
 """bfloat16 message-state storage (config.STATE_BF16): the b-message
-arrays are carried in bf16 (the state is ~78% of the sweep's HBM traffic,
-docs/performance.md) while ALL compute — cavity sums, factor math,
+arrays are carried in bf16 while ALL compute — cavity sums, factor math,
 metrics — stays float32 via upcast-at-read.
 """
 import numpy as np
@@ -80,8 +79,7 @@ def test_pinned_constant_messages_same_fixed_point():
     """config.PIN_CONSTANT_MESSAGES: the Gaussian likelihood's constant
     message is pinned (recomputed from the model in-body, never damped);
     fixed points match the unpinned default (only the transient differs).
-    Default is OFF — measured throughput regression on the remote TPU
-    runtime, see config.py."""
+    Default is OFF, see config.py."""
     student, sample = _build()
 
     def solve():

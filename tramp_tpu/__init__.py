@@ -1,4 +1,4 @@
-"""tramp_tpu: a TPU-native Tree-AMP (EP / state-evolution) inference
+"""tramp_tpu: an accelerator-native Tree-AMP (EP / state-evolution) inference
 framework built on JAX/XLA, with the capabilities of sphinxteam/tramp.
 
 Models are DAGs of priors, channels and likelihoods composed with ``@`` and

@@ -1,6 +1,6 @@
 """Message-passing engine base.
 
-TPU-first architecture (vs the reference's per-edge dict juggling in
+Accelerator-first architecture (vs the reference's per-edge dict juggling in
 tramp/algos/message_passing.py:58-357):
 
 - Message state is a flat tuple of per-directed-edge dicts
@@ -710,7 +710,7 @@ class MessagePassing:
                 records.append(record)
         return records
 
-    # -- on-device trace buffers (SURVEY §5.1: the TPU-native replacement
+    # -- on-device trace buffers (SURVEY §5.1: the on-device replacement
     # for the reference's host-side TrackEvolution callback) ---------------
     def run_trace(self, n_iter=50, damping=None, initializer=None,
                   warm_start=False):

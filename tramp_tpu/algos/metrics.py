@@ -19,8 +19,7 @@ def sign_symmetric_mse(x_true, x_pred):
 
 def phase_symmetric_mse(x_true, x_pred):
     """MSE up to a global phase (100-angle scan, reference l:19-26).
-    Computed on the packed re/im planes (no complex dtype — runs on TPU
-    runtimes without complex support, ops/dft.py)."""
+    Computed on the packed re/im planes (no complex dtype)."""
     x_true = jnp.asarray(x_true)
     xp = jnp.asarray(x_pred)
     phis = jnp.linspace(0, 2 * jnp.pi, 100)

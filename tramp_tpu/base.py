@@ -1,6 +1,6 @@
 """Core node classes of the tramp_tpu factor-graph IR.
 
-Design (TPU-first, not a translation of the reference's object graph):
+Design (accelerator-first, not a translation of the reference's object graph):
 
 - A *Factor* is a frozen-ish Python object whose numeric fields (weights,
   observations, hyperparameters) are pytree leaves and whose structural

@@ -1,6 +1,6 @@
 """Generic smooth-activation channel x = f(z) via fixed-node quadrature.
 
-TPU-native rewrite of the reference's np.vectorize + scipy.quad slow path
+Batched rewrite of the reference's np.vectorize + scipy.quad slow path
 (tramp/channels/activation/activation_channel.py:7-79): the per-element
 1D integral over the tilted belief becomes a broadcasted sum over
 composite Gauss-Legendre nodes — one fused elementwise kernel for the

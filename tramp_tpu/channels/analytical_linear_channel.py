@@ -65,7 +65,7 @@ class MarchenkoPasturChannel(AnalyticalLinearChannel):
 
     ``alpha`` is a pytree *leaf* (all MP transforms are closed-form jnp
     expressions in alpha), so stacked models over an (alpha, rho) grid vmap
-    into a single compiled SE sweep — the TPU-native phase-diagram axis."""
+    into a single compiled SE sweep — the batched phase-diagram axis."""
 
     _data_fields = ("alpha",)
     _meta_fields = ("name",)

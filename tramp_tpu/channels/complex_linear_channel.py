@@ -2,9 +2,9 @@
 as real (2, ...) arrays. Reference tramp/channels/linear/complex_linear_channel.py.
 
 The SVD factors are stored as (2, n, n) re/im pairs and applied with real
-matmuls (ops/dft.py:pair_matmul) — no complex dtype on device, which runs
-on TPU runtimes without complex support at the same cost (XLA decomposes
-complex dots into real dots anyway). The SVD itself is computed host-side
+matmuls (ops/dft.py:pair_matmul) — no complex dtype on device, at the
+same cost as a complex matmul (XLA decomposes complex dots into real dots
+anyway). The SVD itself is computed host-side
 in numpy (complex128) at construction, like LinearChannel's host SVD path.
 """
 import numpy as np

@@ -2,7 +2,7 @@
 messages are elementwise in Fourier space (no O(N^2) anywhere).
 Reference tramp/channels/linear/conv_channel.py.
 
-TPU notes: jnp.fft on TPU lowers to XLA's FFT; spectra are precomputed
+jnp.fft lowers to XLA's FFT (cuFFT on the GPU); spectra are precomputed
 host-side as numpy constants."""
 import numpy as np
 import jax.numpy as jnp
@@ -19,9 +19,9 @@ class ConvChannel(Channel):
     """x = w * z (circular). filter weights w[u] = f*[-u]; w_fft = conj(f_fft).
     Reference conv_channel.py:13-165.
 
-    Two spectral modes (ops/dft.py:packed_mode): complex dtype + XLA FFT,
-    or packed-real (2, ...) pairs + real DFT matmuls (MXU) for runtimes
-    without complex/FFT support."""
+    Two spectral modes (ops/dft.py:packed_mode): complex dtype + XLA FFT
+    (the default), or packed-real (2, ...) pairs + real DFT matmuls
+    (config.FFT_MODE = "matmul")."""
 
     _data_fields = ("filter", "w_fft", "w_fft_bar", "spectrum")
     _meta_fields = ("shape", "real", "packed")

@@ -2,8 +2,8 @@
 Reference tramp/channels/linear/dft_channel.py.
 
 Two spectral modes (chosen at construction, ops/dft.py:packed_mode):
-complex dtype + XLA FFT, or packed-real (2, ...) pairs + real DFT matmuls
-for runtimes without complex/FFT support (the output x is a packed pair in
+complex dtype + XLA FFT (the default), or packed-real (2, ...) pairs + real
+DFT matmuls (config.FFT_MODE = "matmul"; the output x is a packed pair in
 BOTH modes — complex variables use the reference's complex2array layout).
 """
 import jax.numpy as jnp

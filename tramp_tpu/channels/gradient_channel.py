@@ -2,9 +2,9 @@
 output shape (d,) + shape. FFT over the spatial axes only.
 Reference tramp/channels/linear/gradient_channel.py.
 
-Two spectral modes (ops/dft.py:packed_mode): complex dtype + XLA FFT, or
-packed-real (2, ...) pairs + real DFT matmuls (MXU) for runtimes without
-complex/FFT support."""
+Two spectral modes (ops/dft.py:packed_mode): complex dtype + XLA FFT (the
+default), or packed-real (2, ...) pairs + real DFT matmuls
+(config.FFT_MODE = "matmul")."""
 import numpy as np
 import jax.numpy as jnp
 from ..ops import dft

@@ -1,8 +1,8 @@
 """Dense linear channel x = W z, diagonalized once in the SVD basis.
 
-TPU-first design notes (vs reference tramp/channels/linear/linear_channel.py):
+Design notes (vs reference tramp/channels/linear/linear_channel.py):
 - the SVD is computed once at construction (host or device); EP messages are
-  two dense matvecs in the SVD basis — pure MXU work, batchable via vmap
+  two dense matvecs in the SVD basis — pure GEMM work, batchable via vmap
   over instances and shardable over the mesh (only the contraction dims of
   U/V communicate).
 - scalar messages (isotropic a) keep the resolvent a length-Nz vector; no
@@ -65,14 +65,11 @@ class LinearChannel(Channel):
         return n_eff
 
     def _mm(self, A, x, transpose=False):
-        """``A @ x`` (or ``A.T @ x``) for the SVD-basis factors. On TPU
-        (config.matvec_bf16) both operands stream as bfloat16 with float32
-        accumulation, halving their HBM weight traffic; XLA hoists the
-        loop-invariant casts out of the fused sweep loop. The operand
-        rounding matches a single-pass bf16 MXU pass, but the measured
-        fixed-point error vs the exact-f32 CPU control grows from ~2e-5 to
-        ~7.6e-4 (docs/performance.md) — users needing exact
-        default-precision parity should set config.MATVEC_BF16 = False."""
+        """``A @ x`` (or ``A.T @ x``) for the SVD-basis factors. With
+        config.matvec_bf16() both operands stream as bfloat16 with float32
+        accumulation, halving their weight traffic; XLA hoists the
+        loop-invariant casts out of the fused sweep loop. The bf16 operand
+        rounding moves the fixed point, so the gate is off by default."""
         from .. import config
         if not config.matvec_bf16():
             return (A.T if transpose else A) @ x

@@ -1,7 +1,7 @@
 """Embedded VAMP solver for low-rank matrix factorization x = u v^T / sqrt(N)
 (and the symmetric Gram case x = z z^T / sqrt(N)).
 
-TPU-native rewrite of the reference's per-row Python solver
+Batched rewrite of the reference's per-row Python solver
 (tramp/channels/low_rank/AMP_matrix_factorization.py:6-491): the per-row
 KxK Gaussian updates become batched einsum + batched solves, and the
 training loop is a lax.while_loop, so the whole solver traces into the

@@ -2,11 +2,13 @@
 regions, merged by a softmax over per-region log partitions.
 Reference tramp/channels/activation/piecewise_linear_channel.py.
 
-TPU design: the regions list is static; the per-region truncated-Gaussian
-moments are pure elementwise jnp kernels, so the whole posterior fuses into
-one XLA elementwise chain (one pass over the data, VPU-bound)."""
+The regions list is static; the per-region truncated-Gaussian moments are
+pure elementwise jnp code, so XLA fuses the whole posterior into one
+elementwise chain (one pass over the data)."""
+import functools
+
+import jax
 import jax.numpy as jnp
-from jax.nn import softmax
 from jax.scipy.special import logsumexp
 
 from .base_channel import Channel
@@ -46,16 +48,19 @@ class PiecewiseLinearChannel(Channel):
         return sum(p * tau for p, tau in zip(ps, taus))
 
     def _merge_elementwise(self, rs, vs, As):
-        "Softmax-weighted mixture of region moments, no isotropic reduce."
-        As = jnp.stack(As, axis=0)
-        rs = jnp.stack(rs, axis=0)
-        vs = jnp.stack(vs, axis=0)
-        ps = softmax(As, axis=0)
-        r = jnp.sum(ps * rs, axis=0)
+        """Softmax-weighted mixture of region moments, no isotropic reduce.
+
+        Unrolled over the static regions: stacking them into (K, ...)
+        arrays and reducing over K splits XLA's elementwise fusion."""
+        A_max = jax.lax.stop_gradient(functools.reduce(jnp.maximum, As))
+        ws = [jnp.exp(A - A_max) for A in As]
+        Z = sum(ws)
+        ps = [w / Z for w in ws]
+        r = sum(p * r_k for p, r_k in zip(ps, rs))
         # cross-region variance sum_{i<j} p_i p_j (r_i-r_j)^2
         #   = E[r^2] - E[r]^2 over region weights
-        Dr = jnp.sum(ps * rs**2, axis=0) - r**2
-        v = jnp.sum(ps * vs, axis=0) + Dr
+        Dr = sum(p * r_k**2 for p, r_k in zip(ps, rs)) - r**2
+        v = sum(p * v_k for p, v_k in zip(ps, vs)) + Dr
         return r, v
 
     def merge_estimates(self, rs, vs, As):
@@ -88,30 +93,13 @@ class PiecewiseLinearChannel(Channel):
             [rg.log_partitions(az, bz, ax, bx) for rg in self.regions], 0)
         return logsumexp(As, axis=0)
 
-    def _can_fuse(self, az, bz, ax, bx):
-        "Fused Pallas path needs scalar precisions and a large-ish array."
-        from .. import config
-        return (jnp.ndim(az) == 0 and jnp.ndim(ax) == 0
-                and jnp.ndim(bz) >= 1 and jnp.shape(bz) == jnp.shape(bx)
-                and config.use_pallas(jnp.asarray(bz)))
-
     def compute_forward_posterior(self, az, bz, ax, bx):
-        if self._can_fuse(az, bz, ax, bx):
-            from ..ops import fused_pl_posterior
-            _, _, rx, vx, _ = fused_pl_posterior(
-                az, bz, ax, bx, self.region_specs)
-            return rx, jnp.mean(vx)
         rs = [rg.forward_mean(az, bz, ax, bx) for rg in self.regions]
         vs = [rg.forward_variance(az, bz, ax, bx) for rg in self.regions]
         As = [rg.log_partitions(az, bz, ax, bx) for rg in self.regions]
         return self.merge_estimates(rs, vs, As)
 
     def compute_backward_posterior(self, az, bz, ax, bx):
-        if self._can_fuse(az, bz, ax, bx):
-            from ..ops import fused_pl_posterior
-            rz, vz, _, _, _ = fused_pl_posterior(
-                az, bz, ax, bx, self.region_specs)
-            return rz, jnp.mean(vz)
         rs = [rg.backward_mean(az, bz, ax, bx) for rg in self.regions]
         vs = [rg.backward_variance(az, bz, ax, bx) for rg in self.regions]
         As = [rg.log_partitions(az, bz, ax, bx) for rg in self.regions]

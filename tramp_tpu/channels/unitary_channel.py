@@ -2,9 +2,9 @@
 Reference tramp/channels/linear/unitary_channel.py.
 
 The unitary matrix is stored as a (2, N, N) re/im pair and applied with
-real matmuls (ops/dft.py:pair_matmul) — no complex dtype anywhere, which
-(a) runs on TPU runtimes without complex support and (b) costs the same
-as a complex matmul (XLA decomposes complex dots into real dots anyway).
+real matmuls (ops/dft.py:pair_matmul) — no complex dtype anywhere, at the
+same cost as a complex matmul (XLA decomposes complex dots into real dots
+anyway).
 Messages stay in the packed (2, N) layout of utils.misc.complex2array.
 """
 import numpy as np

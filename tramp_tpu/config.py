@@ -1,7 +1,7 @@
 """Global configuration for tramp_tpu.
 
-The reference (sphinxteam/tramp) is float64 numpy throughout. On TPU we
-default to float32 (fast VPU/MXU path) and allow float64 on CPU for
+The reference (sphinxteam/tramp) is float64 numpy throughout. On the
+accelerator we default to float32 and allow float64 on CPU for
 bitwise-tolerant parity testing (enable via ``jax.config.jax_enable_x64``).
 """
 import jax
@@ -23,44 +23,24 @@ GH_NODES = 127
 GL_NODES = 65
 
 
-#: Fused Pallas kernels: None = auto, True/False = force. Auto currently
-#: resolves to False: the piecewise-linear posterior is VPU-compute-bound
-#: (transcendental-heavy truncated-normal moments, ~0.9 ns/element on v5e
-#: = ~4% of HBM peak bandwidth), so the fused kernel measures ~1.0x vs
-#: plain XLA at the
-#: kernel level (8M-element microbench, see docs/performance.md) while
-#: adding compile time. Round-5 autotuning sweep: block_rows in
-#: {64, 128, 256, 512, 1024} all measure 0.98-1.00x vs plain XLA — the
-#: neutrality is not a tiling artifact; the kernel is compute-bound at
-#: every block shape. The kernel stays available (USE_PALLAS=True) and
-#: tested; flip the auto default if a future memory-bound path (bf16, more
-#: regions, fused multi-factor sweeps) changes the balance.
-USE_PALLAS = None
-PALLAS_MIN_SIZE = 2048
-
 #: bfloat16 weight streaming for the dense SVD-basis matvecs of
-#: LinearChannel: None = auto (True on TPU when x64 is disabled), True /
-#: False = force. Casting the loop-invariant U/V factors to bf16 *before*
-#: the GEMM halves their HBM traffic (the sweep is HBM-bound,
-#: docs/performance.md); XLA's while-loop LICM hoists the casts out of the
-#: sweep loop, and accumulation stays float32 (preferred_element_type).
-#: The operand rounding matches a single-pass bf16 MXU pass, but the
-#: measured fixed-point error vs the exact-f32 CPU control grows from
-#: ~2e-5 to ~7.6e-4 (docs/performance.md) — set False for exact
-#: default-precision parity.
+#: LinearChannel: None = auto (False), True / False = force. Casting the
+#: loop-invariant U/V factors to bf16 *before* the GEMM halves their
+#: weight traffic; XLA's while-loop LICM hoists the casts out of the sweep
+#: loop, and accumulation stays float32 (preferred_element_type). The
+#: bf16 operand rounding moves the fixed point; the auto value stays False
+#: until a benchmark cell shows the gate pays for that.
 MATVEC_BF16 = None
 
 
 def matvec_bf16():
-    "Resolve the MATVEC_BF16 gate at trace time."
+    "Resolve the MATVEC_BF16 gate at trace time (None = auto: False)."
     if MATVEC_BF16 is not None:
         return bool(MATVEC_BF16)
-    return (jax.default_backend() == "tpu"
-            and not jax.config.jax_enable_x64)
+    return False
 
 
-#: bfloat16 storage for the b-message arrays of the EP state (the message
-#: state is ~78% of the sweep's HBM traffic, docs/performance.md): b slots
+#: bfloat16 storage for the b-message arrays of the EP state: b slots
 #: are stored bf16 in the while_loop carry and upcast to float32 at every
 #: read (cavity sums, factor math, metrics), so all COMPUTE stays f32 and
 #: only the carried state is compressed. None = auto (currently False:
@@ -70,7 +50,7 @@ def matvec_bf16():
 #: fixed-point accuracy AND the relative-r convergence delta — solves
 #: gated on tol <= 1e-4 will typically run to max_iter. Intended for the
 #: fixed-sweep-count throughput path; accuracy impact is measured in
-#: bench.py / docs/performance.md.
+#: bench.py.
 STATE_BF16 = None
 
 
@@ -87,11 +67,9 @@ def state_bf16():
 #: U^T (y/var), 9.1% of the flagship sweep's FLOPs, verified in the
 #: compiled cost analysis) and are never damped (d*c + (1-d)*c = c at the
 #: fixed point; transient differs, fixed points identical — tested).
-#: DEFAULT OFF: despite the FLOP reduction, the measured flagship
-#: throughput on the v5e remote runtime REGRESSES (206k -> 91k iter/s f32
-#: state, 234k -> 94k bf16) — the hoisted loop-invariant (batch x M)
-#: buffer appears to force a far worse while-loop schedule. A measured
-#: negative; flip on only after re-profiling on a direct-attached TPU.
+#: DEFAULT OFF: the hoisted loop-invariant (batch x M) buffer can force a
+#: worse while-loop schedule, which outweighs the FLOP reduction; flip on
+#: only where a benchmark cell shows a gain.
 PIN_CONSTANT_MESSAGES = None
 
 
@@ -125,27 +103,11 @@ def spectral_carry():
     return True
 
 
-#: FFT implementation for the conv/gradient/DFT channels: None = auto
-#: (probe whether the backend executes XLA's FFT custom call; some TPU
-#: runtimes return UNIMPLEMENTED), "xla" = force jnp.fft, "matmul" = force
-#: the dense-DFT matmul path (MXU-friendly O(n^2) per axis, exact parity
-#: with jnp.fft to dtype accuracy — see ops/dft.py).
+#: FFT implementation for the conv/gradient/DFT channels: None (or "xla")
+#: = native complex64 and jnp.fft; "matmul" = the packed-real dense-DFT
+#: matmul path (O(n^2) per axis, exact parity with jnp.fft to dtype
+#: accuracy — see ops/dft.py).
 FFT_MODE = None
-
-
-def use_pallas(x):
-    """Decide (at trace time) whether to use the fused Pallas path for
-    array ``x``."""
-    import numpy as np
-    if USE_PALLAS is not None:
-        if not USE_PALLAS:
-            return False
-        if x.dtype not in (jnp.float32, jnp.bfloat16):
-            return False
-        if np.prod(x.shape, dtype=int) < PALLAS_MIN_SIZE:
-            return False
-        return jax.default_backend() == "tpu"
-    return False
 
 
 def default_dtype():

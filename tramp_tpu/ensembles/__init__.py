@@ -34,8 +34,7 @@ class ComplexGaussianEnsemble(Ensemble):
         self.N = N
 
     def generate(self, key=None):
-        # complex assembled HOST-SIDE (numpy): complex device arrays are
-        # unsupported on some TPU runtimes (ops/dft.py); the matrix is a
+        # complex assembled HOST-SIDE (numpy): the matrix is a
         # construction-time constant consumed by the packed-real channels
         key = jax.random.PRNGKey(0) if key is None else key
         k1, k2 = jax.random.split(key)

@@ -1,6 +1,6 @@
 """Grid sweeps. Reference tramp/experiments/multiple_experiments.py.
 
-The sequential loop is kept for API parity; the TPU-native vectorized path
+The sequential loop is kept for API parity; the vectorized path
 (vmapped/sharded sweeps) lives in tramp_tpu.parallel."""
 import itertools
 import logging

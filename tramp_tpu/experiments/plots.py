@@ -113,8 +113,7 @@ def plot_compare(x_true, x_pred, ax=None, labels=("true", "pred")):
 def plot_compare_complex(x_true, x_pred, ax=None):
     import matplotlib.pyplot as plt
     ax = ax or plt.gca()
-    # unpack host-side in numpy (complex device arrays are unsupported on
-    # some TPU runtimes, ops/dft.py)
+    # unpack the packed re/im planes host-side in numpy
     xt, xp = np.asarray(x_true), np.asarray(x_pred)
     zt = xt[0] + 1j * xt[1]
     zp = xp[0] + 1j * xp[1]

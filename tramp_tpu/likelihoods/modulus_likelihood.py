@@ -1,8 +1,7 @@
 """Modulus likelihood y = |z| for complex z (phase retrieval).
 Complex arrays are packed as real arrays Z with Z[0]=Re, Z[1]=Im; ALL
-arithmetic is on the real planes (no complex dtype anywhere — required on
-TPU runtimes without complex support, see ops/dft.py, and exactly
-equivalent elsewhere). Reference tramp/likelihoods/modulus_likelihood.py."""
+arithmetic is on the real planes (no complex dtype anywhere, exactly
+equivalent to the complex form). Reference tramp/likelihoods/modulus_likelihood.py."""
 import jax.numpy as jnp
 
 from .base_likelihood import Likelihood

@@ -1,6 +1,6 @@
 """Model: a lowered, schedule-ready view of a ModelDAG.
 
-TPU-first lowering (vs reference tramp/models/base_model.py:28-148):
+Accelerator-first lowering (vs reference tramp/models/base_model.py:28-148):
 the DAG is flattened once into
   - ``nodes``: topologically ordered node objects,
   - ``edges``: ordered (u_idx, v_idx) pairs -> fixed message-slot layout,

@@ -1,13 +1,2 @@
-"""Fused TPU kernels (Pallas) for the hot elementwise paths.
-
-The compute-bound inner loops of EP on nonlinear models are the
-piecewise-linear denoisers (reference
-tramp/channels/activation/piecewise_linear_channel.py +
-tramp/utils/truncated_normal.py): per element, per region, a chain of
-erfcx/exp/log evaluations followed by a softmax merge over regions.
-`fused_pl_posterior` computes BOTH directions' posterior moments and the
-log-partition in a single VMEM pass.
-"""
-from .pl_fused import fused_pl_posterior, pl_posterior_reference
-
-__all__ = ["fused_pl_posterior", "pl_posterior_reference"]
+"""Array operations shared by the channels (``dft``: FFT wrappers and the
+packed-real spectral ops)."""

@@ -20,14 +20,23 @@ Typical use:
 """
 import jax
 
-import orbax.checkpoint as ocp
+
+def _checkpointer():
+    "orbax is an optional dependency, imported only when a checkpoint is used."
+    try:
+        import orbax.checkpoint as ocp
+    except ImportError as e:
+        raise ImportError(
+            "tramp_tpu.parallel checkpoints need the optional package "
+            "'orbax-checkpoint' (pip install orbax-checkpoint)") from e
+    return ocp.StandardCheckpointer()
 
 
 def save_checkpoint(path, state, n_iter):
     """Save a solver state pytree + iteration counters to ``path``
     (a directory; created). Sharded arrays are saved distributed; on a
     multi-host mesh every process must call this collectively."""
-    ckptr = ocp.StandardCheckpointer()
+    ckptr = _checkpointer()
     ckptr.save(str(path), {"state": state, "n_iter": n_iter}, force=True)
     ckptr.wait_until_finished()
     return str(path)
@@ -46,7 +55,7 @@ def restore_checkpoint(path, like):
         "state": jax.tree.map(_abstract, state_like),
         "n_iter": _abstract(n_iter_like),
     }
-    ckptr = ocp.StandardCheckpointer()
+    ckptr = _checkpointer()
     out = ckptr.restore(str(path), template)
     return out["state"], out["n_iter"]
 

@@ -6,7 +6,8 @@ sharded SE/EP solve, with host-0 CSV aggregation for multi-host runs
 Grid points are stacked along the leading (data) axis of one model pytree;
 XLA inserts the collectives from the sharding annotations, and every
 process receives the full result via process_allgather, so artifact output
-is a single CSV written by process 0.
+is a single CSV written by process 0. Only run_se_phase_grid, which returns
+a DataFrame, needs pandas.
 """
 import itertools
 
@@ -25,9 +26,9 @@ def grid_combos(grid_kwargs):
             for combo in itertools.product(*values)]
 
 
-def run_se_phase_grid(model_builder, grid_kwargs, ids=("x",), a0=None,
-                      mesh=None, max_iter=200, tol=1e-6, damping=None,
-                      solver_cls=SESolver, **model_kwargs):
+def se_phase_grid_records(model_builder, grid_kwargs, ids=("x",), a0=None,
+                          mesh=None, max_iter=200, tol=1e-6, damping=None,
+                          solver_cls=SESolver, **model_kwargs):
     """Solve an SE phase grid as one fused batched solve.
 
     Parameters
@@ -40,10 +41,9 @@ def run_se_phase_grid(model_builder, grid_kwargs, ids=("x",), a0=None,
     mesh : optional jax Mesh; grid points are sharded over its 'data' axis
         (padded to a multiple of the data-axis size with repeated points).
 
-    Returns a pandas DataFrame with one row per (grid point, variable id):
-    grid kwargs + v + n_iter.
+    Returns a list of records (dicts), one per (grid point, variable id):
+    grid kwargs + id + v + n_iter.
     """
-    import pandas as pd
     from ..algos import CustomInit
 
     combos = grid_combos(grid_kwargs)
@@ -78,7 +78,21 @@ def run_se_phase_grid(model_builder, grid_kwargs, ids=("x",), a0=None,
             rec = {k: np.asarray(val).item() for k, val in kw.items()}
             rec.update(id=id, v=float(v[i]), n_iter=int(n_iter[i]))
             records.append(rec)
-    return pd.DataFrame(records)
+    return records
+
+
+def run_se_phase_grid(model_builder, grid_kwargs, **kwargs):
+    """:func:`se_phase_grid_records` as a pandas DataFrame (pandas is an
+    optional dependency, needed only here)."""
+    try:
+        import pandas as pd
+    except ImportError as e:
+        raise ImportError(
+            "run_se_phase_grid returns a pandas DataFrame and needs the "
+            "optional package 'pandas'; se_phase_grid_records returns the "
+            "same rows as plain dicts") from e
+    return pd.DataFrame(se_phase_grid_records(model_builder, grid_kwargs,
+                                              **kwargs))
 
 
 def _nullcontext():
@@ -96,11 +110,20 @@ def _fetch(arr):
     return jax.device_get(arr)
 
 
-def save_grid_csv(df, csv_file):
-    """Write the grid DataFrame to CSV on process 0 only (the multi-host
-    artifact path: every process holds the full gathered result, one host
-    writes). Returns True on the writing process."""
+def save_grid_csv(rows, csv_file):
+    """Write the grid (a DataFrame or a list of records) to CSV on process 0
+    only (the multi-host artifact path: every process holds the full
+    gathered result, one host writes). Returns True on the writing
+    process."""
+    import csv
+
     if jax.process_index() != 0:
         return False
-    df.to_csv(csv_file, index=False)
+    if hasattr(rows, "to_dict"):
+        rows = rows.to_dict("records")
+    with open(csv_file, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]),
+                                lineterminator="\n")
+        writer.writeheader()
+        writer.writerows(rows)
     return True

@@ -192,9 +192,8 @@ class MLVAMPSolver:
             A pinned terminal's (ba, bb) are NOT part of the carry: they
             are reconstituted from the model here, so XLA sees them as
             loop invariants computed outside the while_loop. Carrying the
-            constant through the loop state instead measurably wrecks the
-            backend's loop schedule (the round-3 constant-message-pinning
-            negative, docs/performance.md — 206k -> 91k iter/s)."""
+            constant through the loop state instead can wreck the
+            backend's loop schedule (see config.PIN_CONSTANT_MESSAGES)."""
             factors = fresh(model)
             msgs, txs = list(carry[0]), dict(carry[1])
             if self._pin_terminal:

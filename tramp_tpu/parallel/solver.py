@@ -1,7 +1,7 @@
 """Batched EP/SE solvers: thousands of problem instances as one stacked
 Model pytree, vmapped and (optionally) sharded over a device mesh.
 
-This is the TPU-native replacement for the reference's sequential
+This is the batched replacement for the reference's sequential
 experiment loop (tramp/experiments/multiple_experiments.py:30-49): the
 per-instance EP sweep is a pure function, so instances batch with vmap and
 distribute with jax.sharding — convergence is a batched mask inside one
@@ -99,10 +99,10 @@ class _Solver:
         relative posterior-mean change, reference EarlyStoppingEP — the
         EP default) or "v" (|delta| of the per-variable MEAN posterior
         variance, reference EarlyStopping). The "v" form is a SIGNED
-        scalar summary, so per-element bf16 GEMM rounding noise cancels
-        in the mean — on TPU it keeps tol-gating live at default matmul
-        precision in broadcast-W batched layouts where the "r" metric
-        limit-cycles at the rounding floor (docs/performance.md)."""
+        scalar summary, so per-element GEMM rounding noise cancels in the
+        mean — it keeps tol-gating live at reduced matmul precision in
+        broadcast-W batched layouts where the "r" metric can limit-cycle
+        at the rounding floor."""
         self.engine = self.engine_cls(model)
         self.damp = self.engine._damping_per_slot(
             float(damping) if damping else None)
@@ -182,14 +182,12 @@ class _Solver:
 
     # -- convergence-gated throughput mode (bf16 state + f32 polish) ------
     #: phase-1 stopping delta for kind "r": safely above the
-    #: bf16-resolution floor where the bf16-state trajectory limit-cycles
-    #: (~3e-3 measured, docs/performance.md) so the coarse gate always
-    #: fires
+    #: bf16-resolution floor (2^-8 ~ 4e-3 relative) where the bf16-state
+    #: trajectory limit-cycles, so the coarse gate always fires
     BF16_COARSE_TOL = 5e-3
     #: phase-1 delta for kind "v": the signed scalar-mean metric cancels
     #: the per-element bf16 quantization noise, so it stays live far
-    #: below the elementwise floor (fires at 1e-5 with bf16 state,
-    #: measured batch 768 N=1e4 on v5e)
+    #: below the elementwise floor
     BF16_COARSE_TOL_V = 1e-5
 
     def _coarse_default(self):
@@ -241,7 +239,7 @@ class _Solver:
         EarlyStopping) the coarse gate defaults to 1e-5 — the signed
         scalar mean cancels the bf16 quantization noise; measured, the
         single-phase f32 v-gated solve then beats this two-phase split
-        outright at default GEMM precision (docs/performance.md)."""
+        outright at default GEMM precision (bench.py, gated block)."""
         from .. import config
         coarse = self._coarse_default() if coarse_tol is None else coarse_tol
         self._ensure_bf16_runs()
@@ -271,18 +269,15 @@ class _Solver:
         """Batched two-phase gated solve; every lane converges on the true
         tol in the f32 polish. Returns (post, n_iter_total, conv).
 
-        NOTE (TPU, broadcast-W batched layouts): bf16-rounded GEMMs
-        (default matmul precision) limit-cycle the relative-r delta at
-        ~1e-3 in layouts where many lanes share one weight matrix
-        (docs/performance.md — measured at N=1000 round 3 and N=1e4
-        batch 768 round 4), so a tight tol never fires EVEN WITH f32
-        state. For such solves run this method (it traces on first call)
+        NOTE (broadcast-W batched layouts): reduced-precision GEMMs can
+        limit-cycle the relative-r delta at ~1e-3 in layouts where many
+        lanes share one weight matrix, so a tight tol never fires EVEN
+        WITH f32 state. For such solves run this method (it traces on first call)
         under ``jax.default_matmul_precision("highest")`` with
         ``config.MATVEC_BF16 = False``, stack per-lane weights, or —
         usually best — construct the solver with ``stop_kind="v"``: that
         criterion's scalar-mean metric cancels the rounding noise and
-        gates at default precision (measured 4.8x faster,
-        docs/performance.md). The kind-aware coarse phase-1 gate fires
+        gates at default precision. The kind-aware coarse phase-1 gate fires
         regardless."""
         from .. import config
         coarse = self._coarse_default() if coarse_tol is None else coarse_tol

@@ -8,9 +8,7 @@ iteration only two dense GEMMs against the THIN factor V_k (Nz, k),
 k = min(Nx, Nz), remain — V_k^T r2 into the spectral basis and
 V_k (d - t) back out, the complement modes riding along analytically
 (x2 = r2 + V_k (d - t), since d_perp = t_perp). That is 2 Nz k MACs
-per iteration vs the generic engine's full per-sweep cost
-(docs/performance.md roofline) — measured 1.7x the engine and 675k
-iter/s on the flagship at alpha = 1/2 (v5e). The reference has no GLM
+per iteration vs the generic engine's full per-sweep cost. The reference has no GLM
 fast path (its embedded VAMP solver serves only the low-rank
 factorization channels, tramp/channels/low_rank/AMP_matrix_factorization.py).
 

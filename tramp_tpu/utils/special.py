@@ -1,22 +1,12 @@
 """Special functions needed by the belief kernels, implemented branchless
-for XLA/TPU (every regime is computed on sanitized inputs and selected with
+for XLA (every regime is computed on sanitized inputs and selected with
 ``jnp.where`` so the kernels are jit-, vmap- and grad-safe).
 
 Provides the scaled complementary error function ``erfcx`` (absent from
 jax.scipy) plus the log-Gaussian-cdf helpers that the reference keeps in
-tramp/utils/misc.py:55-83.
-
-Two implementations are provided, selected by ``kernel_mode``:
-
-- default: built on jax.scipy.special (erfc/ndtr/log_ndtr) — full float64
-  accuracy for CPU parity testing;
-- kernel mode: self-contained Chebyshev/Taylor evaluations using only
-  +,*,exp,log primitives, because Pallas TPU has no lowering for the
-  erf/erfc/ndtr primitives. Max relative error ~3e-15 (erfcx fit), far
-  below float32 resolution. Enabled while tracing Pallas kernel bodies.
+tramp/utils/misc.py:55-83, built on jax.scipy.special (erfc/ndtr/log_ndtr)
+with full float64 accuracy for CPU parity testing.
 """
-import contextlib
-
 import jax
 import jax.numpy as jnp
 from jax.scipy import special as jsp
@@ -28,8 +18,8 @@ SQRT_2PI = 2.5066282746310002
 # |x| below which exp(x^2)*erfc(x) is computed directly without overflow.
 # DTYPE-AWARE: float64 exp overflows at x ~ 26.6 (erfc underflows ~27), but
 # float32 exp(x^2) overflows already at x ~ 9.4 while erfc underflows to 0,
-# so the f64 threshold would produce inf * 0 = NaN for x in [9.4, 25] on
-# TPU f32 (seen as first-sweep NaNs in the VAE-prior chain). The 5-term
+# so the f64 threshold would produce inf * 0 = NaN for x in [9.4, 25] in
+# f32 (seen as first-sweep NaNs in the VAE-prior chain). The 5-term
 # asymptotic series at x=9 has relative error ~6e-10, below f32 eps.
 _ERFCX_DIRECT_MAX_F64 = 25.0
 _ERFCX_DIRECT_MAX_F32 = 9.0
@@ -39,109 +29,12 @@ def _erfcx_direct_max(dtype):
     return (_ERFCX_DIRECT_MAX_F64 if jnp.finfo(dtype).bits >= 64
             else _ERFCX_DIRECT_MAX_F32)
 
-# ---------------------------------------------------------------------------
-# Pallas-kernel-safe implementations (no erf/erfc/ndtr primitives)
-# ---------------------------------------------------------------------------
 
-#: Chebyshev fit of g(s) = (1 + 2x) erfcx(x), s = (x-K)/(x+K), x in [0, inf)
-#: (Shepherd & Laframboise 1981 transform). Max relative error 2.8e-15 over
-#: the whole half line (validated against float64 exp(x^2) erfc(x)).
-_CHEB_K = 3.75
-_CHEB_COEFS = (
-    1.1775789345674021e+00, -4.5900545806464681e-03,
-    -8.4249133366517889e-02, 5.9209939998191990e-02,
-    -2.6658668435305722e-02, 9.0749976707053259e-03,
-    -2.4131635404175552e-03, 4.9077583652575962e-04,
-    -6.9169733025021434e-05, 4.1390279860341314e-06,
-    7.7403830661732530e-07, -2.1886401045352985e-07,
-    1.0764999549087787e-08, 4.5219598602606828e-09,
-    -7.7543993374352597e-10, -6.3180849849055805e-11,
-    2.8687974686624729e-11, 1.9452296853429022e-13,
-    -9.6548403538224451e-13, 3.2521653276035408e-14,
-    3.3528217607381128e-14, -1.8645632496497235e-15,
-    -1.1509832827963204e-15, 1.2682679523613379e-16,
-    8.0824371326448943e-17,
-)
-
-_KERNEL_MODE = False
-
-
-@contextlib.contextmanager
-def kernel_mode():
-    """Route the special functions through the self-contained (Pallas-safe)
-    implementations while tracing a kernel body."""
-    global _KERNEL_MODE
-    prev = _KERNEL_MODE
-    _KERNEL_MODE = True
-    try:
-        yield
-    finally:
-        _KERNEL_MODE = prev
-
-
-def _erfcx_cheb_pos(x):
-    "erfcx(x) for x >= 0 via the Chebyshev fit (Clenshaw evaluation)."
-    s = (x - _CHEB_K) / (x + _CHEB_K)
-    b1 = jnp.zeros_like(s)
-    b2 = jnp.zeros_like(s)
-    for c in _CHEB_COEFS[:0:-1]:
-        b1, b2 = 2.0 * s * b1 - b2 + c, b1
-    g = _CHEB_COEFS[0] + s * b1 - b2
-    return g / (1.0 + 2.0 * x)
-
-
-def _erfcx_kernel(x):
-    ax = jnp.abs(x)
-    pos = _erfcx_cheb_pos(ax)
-    neg = 2.0 * jnp.exp(jnp.square(x)) - pos
-    return jnp.where(x >= 0, pos, neg)
-
-
-def _erfc_kernel(x):
-    ax = jnp.abs(x)
-    p = _erfcx_cheb_pos(ax) * jnp.exp(-ax * ax)
-    return jnp.where(x >= 0, p, 2.0 - p)
-
-
-def _erf_kernel(x):
-    # |x| < 0.5: odd Taylor series (no cancellation, term 8 < 1e-11);
-    # else 1 - erfc (no cancellation since erfc(0.5) ~ 0.48)
-    ax = jnp.abs(x)
-    x2 = jnp.square(jnp.minimum(ax, 0.5))
-    series = 0.0
-    # sum_{k=0..9} (-1)^k x^{2k+1} / (k! (2k+1)), Horner in x^2
-    import math
-    for k in range(9, -1, -1):
-        series = series * x2 + (-1.0) ** k / (math.factorial(k) * (2 * k + 1))
-    small = (2.0 / SQRT_PI) * jnp.minimum(ax, 0.5) * series
-    big = 1.0 - _erfc_kernel(jnp.maximum(ax, 0.5))
-    r = jnp.where(ax < 0.5, small, big)
-    return jnp.where(x >= 0, r, -r)
-
-
-def _ndtr_kernel(x):
-    return 0.5 * _erfc_kernel(-x / SQRT2)
-
-
-def _log_ndtr_kernel(x):
-    # x >= 0: log1p(-erfc(x/sqrt2)/2) is cancellation-free;
-    # x <  0: log(erfcx(-x/sqrt2)/2) - x^2/2, both terms moderate.
-    xs = x / SQRT2
-    upper = jnp.log1p(-0.5 * _erfc_kernel(jnp.maximum(xs, 0.0)))
-    lower = (jnp.log(0.5 * _erfcx_cheb_pos(jnp.maximum(-xs, 0.0)))
-             - jnp.square(jnp.minimum(xs, 0.0)))
-    return jnp.where(x >= 0, upper, lower)
-
-
-def erf(x):
-    "erf with a Pallas-safe fallback in kernel mode."
-    if _KERNEL_MODE:
-        return _erf_kernel(x)
-    return jsp.erf(x)
+erf = jsp.erf
 
 
 @jax.custom_jvp
-def _erfcx_jsp(x):
+def erfcx(x):
     """Scaled complementary error function exp(x**2) * erfc(x).
 
     Matches scipy.special.erfcx on the real line, including the reference's
@@ -167,26 +60,16 @@ def _erfcx_jsp(x):
     return jnp.where(x >= 0, pos, neg)
 
 
-@_erfcx_jsp.defjvp
+@erfcx.defjvp
 def _erfcx_jvp(primals, tangents):
     (x,), (dx,) = primals, tangents
-    y = _erfcx_jsp(x)
+    y = erfcx(x)
     # d/dx erfcx(x) = 2 x erfcx(x) - 2/sqrt(pi)
     return y, (2.0 * x * y - 2.0 / SQRT_PI) * dx
 
 
-def erfcx(x):
-    """Scaled complementary error function exp(x**2) * erfc(x) (dispatches
-    to the Pallas-safe Chebyshev evaluation in kernel mode)."""
-    if _KERNEL_MODE:
-        return _erfcx_kernel(x)
-    return _erfcx_jsp(x)
-
-
 def norm_cdf(x):
     "Standard normal cdf Phi(x). Reference tramp/utils/misc.py:55-57."
-    if _KERNEL_MODE:
-        return _ndtr_kernel(x)
     return jsp.ndtr(x)
 
 
@@ -197,8 +80,6 @@ def norm_pdf(x):
 
 def log_Phi(x):
     "log Phi(x), stable for large |x|. Reference truncated_normal.py:22-30."
-    if _KERNEL_MODE:
-        return _log_ndtr_kernel(x)
     return jsp.log_ndtr(x)
 
 

@@ -4,7 +4,7 @@ Branchless JAX rewrite of the reference's regime-switching implementation
 (tramp/utils/truncated_normal.py:32-298, itself based on
 cossio/TruncatedNormal.jl). Every regime (inf / close / neg / pos / other)
 is evaluated on sanitized in-regime inputs and combined with ``jnp.where``
-so the functions are jit-, vmap- and autodiff-safe on TPU.
+so the functions are jit-, vmap- and autodiff-safe on every backend.
 
 Interval bounds ``zmin``/``zmax`` must be *static* Python floats (possibly
 +-inf): factor regions are compile-time constants, so the inf cases are
